@@ -1,12 +1,11 @@
-// Native runtime components for ray_tracer_tpu.
+// Native runtime components for ray_tracer.
 //
 // The reference's host runtime is Rust (scene assembly, asset parsing,
-// src/core/scene.rs + src/core/resource.rs); the TPU build keeps its
+// src/core/scene.rs + src/core/resource.rs); this system keeps its
 // compute path in XLA/Pallas and implements the host-side hot paths here in
 // C++: a fast Wavefront-OBJ parser (text parsing is the slowest host stage
-// for large models) and Morton ordering of triangle centroids (feeds the
-// Pallas cluster-culling kernel). Loaded via ctypes
-// (ray_tracer_tpu/utils/native.py) with a pure-Python fallback when the
+// for large models) and Morton ordering of triangle centroids. Loaded via ctypes
+// (ray_tracer/utils/native.py) with a pure-Python fallback when the
 // shared library hasn't been built.
 //
 // Build: make -C native        (g++ -O2 -shared -fPIC)

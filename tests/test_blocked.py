@@ -1,28 +1,20 @@
-"""Streaming (tri-blocked) kernel vs the jnp oracle.
+"""Larger scenes through the kernel vs the jnp oracle.
 
-The blocked kernel (pallas_intersect._make_blocked_kernel) streams the
-triangle planes through a second grid dimension instead of keeping the
-whole scene VMEM-resident; these tests force it on tiny scenes with a
-small tri_block so several blocks are exercised, including winner
-replacement across blocks and the incremental attribute extraction.
+Scenes of a few thousand triangles span several super-clusters (8
+clusters of 64 triangles each), so the kernel's two-level walk, winner
+replacement across clusters and the cluster culling all take part. The
+kernel runs in the Pallas interpreter here.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.ops.intersect import (fused_intersect, hit_attributes,
-                                          nearest_hit_jnp)
-from ray_tracer_tpu.ops.pallas_intersect import (KConfig,
-                                                 nearest_hit_attrs_pallas,
-                                                 nearest_hit_pallas)
+import ray_tracer as rt
+from ray_tracer.ops.intersect import (hit_attributes, intersect,
+                                      nearest_hit_jnp)
+from ray_tracer.ops.pallas_intersect import nearest_hit_pallas
 
-INTERPRET = jax.default_backend() != "tpu"
-
-# 1024-tri blocks (the minimum: Mosaic requires >= 8 clusters per
-# block); multi-block on any scene with > 1024 padded tris
-BLOCKED_CFG = KConfig(tri_block=1024, blocked="force")
+INTERPRET = True
 
 
 def _random_rays(n, seed=0, spread=6.0):
@@ -51,10 +43,10 @@ def _mesh_scene(n_tris=300, seed=3, with_spheres=True):
     return b.build(pad=128)
 
 
-def _check_t_id(scene, o, d, cfg):
+def _check_t_id(scene, o, d):
     t_ref, id_ref = nearest_hit_jnp(scene, o, d, 1e-4)
     t_blk, id_blk = nearest_hit_pallas(scene, o, d, 1e-4,
-                                       interpret=INTERPRET, cfg=cfg)
+                                       interpret=INTERPRET)
     t_ref, t_blk = np.asarray(t_ref), np.asarray(t_blk)
     hit_ref, hit_blk = np.isfinite(t_ref), np.isfinite(t_blk)
     np.testing.assert_array_equal(hit_ref, hit_blk)
@@ -66,45 +58,29 @@ def _check_t_id(scene, o, d, cfg):
 
 
 def test_blocked_matches_oracle_multiblock():
-    scene = _mesh_scene(2400)  # 2432 padded tris -> 3 blocks of 1024
-    assert scene.padded_tris // 1024 >= 2
-    _check_t_id(scene, *_random_rays(384, seed=11, spread=8.0), BLOCKED_CFG)
-
-
-def test_blocked_matches_resident_kernel():
-    """force-blocked and resident kernels agree on the same scene."""
-    scene = _mesh_scene(2400)
-    o, d = _random_rays(256, seed=12, spread=8.0)
-    t_a, id_a = nearest_hit_pallas(scene, o, d, interpret=INTERPRET,
-                                   cfg=KConfig(blocked="never"))
-    t_b, id_b = nearest_hit_pallas(scene, o, d, interpret=INTERPRET,
-                                   cfg=BLOCKED_CFG)
-    np.testing.assert_allclose(np.asarray(t_a), np.asarray(t_b), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(id_a), np.asarray(id_b))
+    scene = _mesh_scene(2400)  # 38 clusters in 5 super-clusters
+    _check_t_id(scene, *_random_rays(384, seed=11, spread=8.0))
 
 
 def test_blocked_attrs_winner_replacement():
-    """Winner rows must follow the winner even when a later block beats an
-    earlier block's (or a sphere's) best hit: the incrementally extracted
-    merged-table rows must equal the oracle gather BIT FOR BIT (same
-    prim_id ⇒ the kernel copies the very plane columns _pack_attrs packs),
-    and miss lanes must emit all-zero rows."""
-    from ray_tracer_tpu.ops.intersect import _pack_attrs
+    """Winner attributes must follow the winner even when a later cluster
+    beats an earlier cluster's (or a sphere's) best hit: the Hit fields
+    equal the oracle's wherever the ids agree, and miss lanes report no
+    hit."""
     scene = _mesh_scene(2400, seed=5)
     o, d = _random_rays(384, seed=13, spread=8.0)
-    t, pid, rows = nearest_hit_attrs_pallas(scene, o, d,
-                                            interpret=INTERPRET,
-                                            cfg=BLOCKED_CFG)
+    h = intersect(scene, o, d, backend="pallas", interpret=INTERPRET)
     t_ref, id_ref = nearest_hit_jnp(scene, o, d, 1e-4)
     hitm = np.isfinite(np.asarray(t_ref))
     assert hitm.sum() > 30
-    want = np.asarray(_pack_attrs(scene))[np.asarray(id_ref)]
-    # id ties at equal t may pick a different (equally near) winner; the
-    # row contract is per-id, so compare where the ids agree (≈ all lanes)
-    same = hitm & (np.asarray(pid) == np.asarray(id_ref))
+    ref = hit_attributes(scene, o, d, id_ref, ~hitm, 1e-4)
+    same = hitm & (np.asarray(h.prim_id) == np.asarray(id_ref))
     assert same.sum() > 30
-    np.testing.assert_array_equal(np.asarray(rows).T[same], want[same])
-    np.testing.assert_array_equal(np.asarray(rows).T[~hitm], 0.0)
+    for field in ("t", "normal", "albedo", "smoothness"):
+        np.testing.assert_array_equal(np.asarray(getattr(h, field))[same],
+                                      np.asarray(getattr(ref, field))[same],
+                                      err_msg=field)
+    np.testing.assert_array_equal(np.asarray(h.hit), hitm)
 
 
 def test_blocked_alive_mask_and_padding():
@@ -114,45 +90,38 @@ def test_blocked_alive_mask_and_padding():
     o, d = _random_rays(200, seed=14, spread=8.0)  # 200 % 128 != 0
     alive = jnp.asarray(np.arange(200) % 3 != 0)
     t, pid = nearest_hit_pallas(scene, o, d, alive=alive,
-                                interpret=INTERPRET, cfg=BLOCKED_CFG)
+                                interpret=INTERPRET)
     assert np.isinf(np.asarray(t)[~np.asarray(alive)]).all()
     t_ref, _ = nearest_hit_jnp(scene, o, d, 1e-4)
     live = np.asarray(alive) & np.isfinite(np.asarray(t_ref))
     np.testing.assert_allclose(np.asarray(t)[live], np.asarray(t_ref)[live],
                                rtol=3e-4, atol=1e-5)
     t0, _ = nearest_hit_pallas(scene, o, d, alive=jnp.zeros(200, bool),
-                               interpret=INTERPRET, cfg=BLOCKED_CFG)
+                               interpret=INTERPRET)
     assert np.isinf(np.asarray(t0)).all()
 
 
 def test_blocked_occlusion_fallback():
-    """occluded() must route over-budget scenes through the streaming
-    closest-hit (the any-hit kernel is resident-only) and agree with the
-    jnp oracle."""
-    import os
-    from ray_tracer_tpu.ops.intersect import occluded
+    """occluded() through the kernel on a multi-super-cluster scene agrees
+    with the jnp oracle."""
+    from ray_tracer.ops.intersect import occluded
     scene = _mesh_scene(1200, seed=9)
     o, d = _random_rays(256, seed=17, spread=4.0)
     want = np.asarray(occluded(scene, o, d, backend="jnp"))
-    os.environ["RTT_BLOCKED"] = "force"
-    os.environ["RTT_TRI_BLOCK"] = "1024"
-    try:
-        got = np.asarray(occluded(scene, o, d, backend="pallas"))
-    finally:
-        del os.environ["RTT_BLOCKED"], os.environ["RTT_TRI_BLOCK"]
+    got = np.asarray(occluded(scene, o, d, backend="pallas",
+                              interpret=INTERPRET))
     assert want.any() and not want.all()
     np.testing.assert_array_equal(got, want)
 
 
 def test_blocked_textured_fused():
-    """fused_intersect through the blocked kernel on a textured scene:
-    24-row incremental extraction + outside texture fetch must match the
-    hit_attributes oracle."""
+    """The kernel path on a textured scene of several super-clusters:
+    winners + texture fetch must match the hit_attributes oracle."""
     rng = np.random.default_rng(21)
     b = rt.SceneBuilder()
     tex = rng.random((8, 8, 3)).astype(np.float32)
     ti = b.add_texture(tex, srgb=False)
-    for k in range(1100):  # >1024 so the textured planes span 2 blocks
+    for k in range(1100):  # 18 clusters in 3 super-clusters
         c = rng.normal(size=3) * 3.0
         v = c + rng.normal(size=(3, 3))
         n = np.cross(v[1] - v[0], v[2] - v[0])
@@ -165,14 +134,7 @@ def test_blocked_textured_fused():
     # origins inside the triangle cloud -> plenty of hit lanes
     o, d = _random_rays(256, seed=15, spread=1.0)
 
-    import ray_tracer_tpu.ops.pallas_intersect as pi
-    import os
-    os.environ["RTT_BLOCKED"] = "force"
-    os.environ["RTT_TRI_BLOCK"] = "1024"
-    try:
-        fused = fused_intersect(scene, o, d, 1e-4, None)
-    finally:
-        del os.environ["RTT_BLOCKED"], os.environ["RTT_TRI_BLOCK"]
+    fused = intersect(scene, o, d, backend="pallas", interpret=INTERPRET)
     t_ref, pid = nearest_hit_jnp(scene, o, d, 1e-4)
     ref = hit_attributes(scene, o, d, pid, jnp.isinf(t_ref), 1e-4)
     m = np.asarray(ref.hit)
@@ -182,115 +144,3 @@ def test_blocked_textured_fused():
         np.testing.assert_allclose(np.asarray(getattr(fused, field))[m],
                                    np.asarray(getattr(ref, field))[m],
                                    rtol=5e-4, atol=2e-5, err_msg=field)
-
-
-def test_block_lists_match_dense_grid():
-    """The scalar-prefetch block-list grid must agree exactly with the
-    dense (every-block) grid — including winner rows and with a partial
-    alive mask (t/id: array-equal; the conservative host-side slab test
-    may only add visits, never remove folds)."""
-    scene = _mesh_scene(2400, seed=5)
-    o, d = _random_rays(384, seed=13, spread=8.0)
-    alive = jnp.asarray(np.arange(384) % 5 != 0)
-    dense = KConfig(tri_block=1024, blocked="force", block_lists=False)
-    lists = KConfig(tri_block=1024, blocked="force", block_lists=True)
-    t_a, id_a, rows_a = nearest_hit_attrs_pallas(
-        scene, o, d, alive=alive, interpret=INTERPRET, cfg=dense)
-    t_b, id_b, rows_b = nearest_hit_attrs_pallas(
-        scene, o, d, alive=alive, interpret=INTERPRET, cfg=lists)
-    np.testing.assert_array_equal(np.asarray(t_a), np.asarray(t_b))
-    np.testing.assert_array_equal(np.asarray(id_a), np.asarray(id_b))
-    np.testing.assert_array_equal(np.asarray(rows_a), np.asarray(rows_b))
-
-
-def test_block_lists_helper_properties():
-    """_block_lists invariants: entered indices unique and real, padding
-    repeats the last entry, zero-entry steps yield cnt=0. The default
-    near-to-far order and the RTT_BLOCK_ORDER=id control must list the
-    SAME entered-block set per step; id mode is ascending."""
-    import os
-    from ray_tracer_tpu.ops.pallas_intersect import _block_lists
-    rng = np.random.default_rng(3)
-    n_steps, step, n_blocks, TB = 4, 256, 6, 1024
-    rays = np.zeros((8, n_steps * step), np.float32)
-    rays[0:3] = rng.normal(size=(3, n_steps * step)) * 5
-    rays[3:6] = rng.normal(size=(3, n_steps * step))
-    rays[6] = 1.0
-    rays[6, :step] = 0.0            # step 0 fully dead -> no blocks
-    blk = np.zeros((n_blocks, 8), np.float32)
-    for k in range(n_blocks):
-        c = rng.normal(size=3) * 6
-        blk[k, 0:3], blk[k, 3:6] = c - 1.5, c + 1.5
-    blk[5, 0:3], blk[5, 3:6] = np.inf, -np.inf   # padding block
-    args = (jnp.asarray(rays), jnp.asarray(blk), n_steps, step, n_blocks,
-            TB)
-    bl, cnt = _block_lists(*args, num_real_tris=5 * TB, t_min=1e-4)
-    os.environ["RTT_BLOCK_ORDER"] = "id"
-    try:
-        bl_id, cnt_id = _block_lists(*args, num_real_tris=5 * TB,
-                                     t_min=1e-4)
-    finally:
-        del os.environ["RTT_BLOCK_ORDER"]
-    bl, cnt = np.asarray(bl), np.asarray(cnt)
-    bl_id, cnt_id = np.asarray(bl_id), np.asarray(cnt_id)
-    np.testing.assert_array_equal(cnt, cnt_id)
-    assert cnt[0] == 0 and (bl[0] == 0).all()
-    for i in range(n_steps):
-        row, c = bl[i], cnt[i]
-        assert (row[:c] < 5).all()                     # padding block never
-        assert len(set(row[:c])) == c                  # unique
-        assert set(row[:c]) == set(bl_id[i][:c])       # same entered set
-        assert (np.diff(bl_id[i][:c]) > 0).all()       # id mode ascending
-        if c:
-            assert (row[c:] == row[c - 1]).all()       # repeat-pad
-
-
-def test_blocked_mxu_engine_matches_oracle():
-    """KConfig.mt='mxu' on the STREAMING path: same matmul decomposition,
-    streamed-block id bases, zero-padded mxu columns in padding rows
-    (det=0 -> never valid)."""
-    scene = _mesh_scene(n_tris=700, seed=13)
-    o, d = _random_rays(384, seed=14, spread=8.0)
-    _check_t_id(scene, o, d, BLOCKED_CFG._replace(mt="mxu"))
-
-
-def test_blocked_mxu_extract_matches_oracle():
-    """extract='mxu' on the STREAMING incremental re-extraction: winner
-    rows bit-identical to the oracle gather (the sum-variant guarantee)."""
-    from ray_tracer_tpu.ops.pallas_intersect import nearest_hit_attrs_pallas
-    from ray_tracer_tpu.ops.intersect import _pack_attrs
-
-    scene = _mesh_scene(n_tris=700, seed=15)
-    o, d = _random_rays(384, seed=16, spread=8.0)
-    t_ref, id_ref = nearest_hit_jnp(scene, o, d, 1e-4)
-    for cfg in (BLOCKED_CFG._replace(extract="mxu"),
-                BLOCKED_CFG._replace(extract="mxu", mt="mxu")):
-        t_blk, id_blk, rows = nearest_hit_attrs_pallas(
-            scene, o, d, 1e-4, interpret=INTERPRET, cfg=cfg)
-        hit = np.isfinite(np.asarray(t_ref))
-        same = hit & (np.asarray(id_blk) == np.asarray(id_ref))
-        want = np.asarray(_pack_attrs(scene))[np.asarray(id_ref)[same]]
-        np.testing.assert_array_equal(np.asarray(rows).T[same], want)
-
-
-def test_blocked_supers_in_block_parity():
-    """The r4 third hierarchy level (supers INSIDE each streamed block —
-    super slab -> lazy member-cluster slab -> MT) must be bit-equivalent
-    to the flat per-block prepass. cluster=16 makes the per-block super
-    count (1024/16/8 = 8) a whole sublane tile so the path is genuinely
-    active (the default tri_block=1024 test config auto-disables it)."""
-    from ray_tracer_tpu.ops.pallas_intersect import _blocked_supers
-
-    scene = _mesh_scene(2400)
-    o, d = _random_rays(640, seed=11)
-    sup_cfg = KConfig(tri_block=1024, blocked="force", cluster=16,
-                      tri_rows=16, supers=8)
-    flat_cfg = sup_cfg._replace(supers=0)
-    assert _blocked_supers(sup_cfg, 1024) == 8
-    t_s, id_s = nearest_hit_pallas(scene, o, d, 1e-4, interpret=INTERPRET,
-                                   cfg=sup_cfg)
-    t_f, id_f = nearest_hit_pallas(scene, o, d, 1e-4, interpret=INTERPRET,
-                                   cfg=flat_cfg)
-    np.testing.assert_array_equal(np.asarray(t_s), np.asarray(t_f))
-    np.testing.assert_array_equal(np.asarray(id_s), np.asarray(id_f))
-    _check_t_id(scene, o, d, sup_cfg)

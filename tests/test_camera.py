@@ -6,9 +6,9 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu import Camera, CameraController, camera_basis, camera_rays, update_camera
-from ray_tracer_tpu import sampling
+import ray_tracer as rt
+from ray_tracer import Camera, CameraController, camera_basis, camera_rays, update_camera
+from ray_tracer import sampling
 
 
 def _np_basis(origin, look_at, vup, fov, aspect, focus_dist, aperture):
@@ -108,7 +108,7 @@ def test_update_camera_pitch_clamped():
 def test_camera_basis_jnp_matches_numpy():
     """The differentiable basis must reproduce the host-numpy basis
     exactly (same math, f32)."""
-    from ray_tracer_tpu.camera import camera_basis, camera_basis_jnp
+    from ray_tracer.camera import camera_basis, camera_basis_jnp
 
     cam = Camera(origin=(1.0, 2.0, 3.0), look_at=(0.0, 0.5, -1.0),
                  fov=35.0, aspect=1.5, focus_dist=2.5, aperture=0.2)
@@ -129,8 +129,8 @@ def test_camera_pose_recovery():
     translated camera origin from a CRN target on the metal scene."""
     import jax
     import optax
-    from ray_tracer_tpu.camera import camera_basis_jnp
-    from ray_tracer_tpu.renderer import render_frame
+    from ray_tracer.camera import camera_basis_jnp
+    from ray_tracer.renderer import render_frame
 
     scene, cam = rt.builtin_scene("metal", aspect=1.0)
     params = rt.RenderParams(width=32, height=32, bounces=1, skybox=True,

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import optax
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.grad import make_train_step
-from ray_tracer_tpu.utils.checkpoint import (
+import ray_tracer as rt
+from ray_tracer.grad import make_train_step
+from ray_tracer.utils.checkpoint import (
     load_renderer, load_training, save_renderer, save_training)
 
 
@@ -77,7 +77,7 @@ def test_viewer_importable_headless():
     import matplotlib
     matplotlib.use("Agg", force=True)
     import pytest
-    from ray_tracer_tpu.viewer import view
+    from ray_tracer.viewer import view
     scene, cam, params = _mk()
     with pytest.raises(RuntimeError, match="headless"):
         view(scene, cam, params)

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.denoise import denoise, denoise_render
-from ray_tracer_tpu.renderer import camera_basis, render_aov, render_frame
+import ray_tracer as rt
+from ray_tracer.denoise import denoise, denoise_render
+from ray_tracer.renderer import camera_basis, render_aov, render_frame
 
 
 def test_denoise_reduces_noise_preserves_edges():

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.parallel import render_frame_distributed
-from ray_tracer_tpu.parallel.distributed import (
+import ray_tracer as rt
+from ray_tracer.parallel import render_frame_distributed
+from ray_tracer.parallel.distributed import (
     CHIP_AXIS, HOST_AXIS, make_host_chip_mesh, pixel_sharding_spec)
-from ray_tracer_tpu.renderer import render_frame
+from ray_tracer.renderer import render_frame
 
 
 def test_host_chip_mesh_shape():
@@ -45,7 +45,7 @@ def test_simulated_two_hosts():
 
 def test_gradients_on_two_host_mesh():
     from jax.sharding import Mesh
-    from ray_tracer_tpu.grad import image_mse, split_scene
+    from ray_tracer.grad import image_mse, split_scene
     devs = np.array(jax.devices()).reshape(2, 4)
     mesh = Mesh(devs, (HOST_AXIS, CHIP_AXIS))
     scene, cam = rt.builtin_scene("metal", aspect=1.0, pad=8)
@@ -63,7 +63,7 @@ def test_gradients_on_two_host_mesh():
 
 
 def test_initialize_idempotent_single_process():
-    from ray_tracer_tpu.parallel import distributed
+    from ray_tracer.parallel import distributed
     distributed.initialize()  # must not raise in single-process env
     distributed.initialize()
 
@@ -75,7 +75,7 @@ def test_pixel_sharding_spec():
 
 def test_host_chip_mesh_rejects_uneven_devices():
     import pytest
-    from ray_tracer_tpu.parallel import distributed
+    from ray_tracer.parallel import distributed
 
     class FakeDev:
         def __init__(self, proc):
@@ -88,7 +88,7 @@ def test_host_chip_mesh_rejects_uneven_devices():
 
 def test_host_chip_mesh_groups_by_process_index():
     # interleaved device order must still land each host's chips in one row
-    from ray_tracer_tpu.parallel import distributed
+    from ray_tracer.parallel import distributed
     devs = jax.devices()
     mesh = distributed.make_host_chip_mesh(devs)
     for row in mesh.devices:

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ray_tracer_tpu import envlight
+from ray_tracer import envlight
 
 
 def test_straight_up_is_zenith_plus_sun():

@@ -1,15 +1,19 @@
-"""Fused in-kernel attribute extraction vs the jnp oracle path."""
+"""Winner attributes on the kernel path vs the jnp oracle path.
+
+The kernel (in the Pallas interpreter here) finds the winners; both paths
+share the differentiable recompute (hit_attributes)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.ops.intersect import (
-    fused_intersect, hit_attributes, intersect, nearest_hit_jnp)
-from ray_tracer_tpu.ops import pallas_intersect as pk
+import ray_tracer as rt
+from ray_tracer.ops.intersect import hit_attributes, intersect, nearest_hit_jnp
 
-# pallas auto-interprets off-TPU (pallas_intersect._auto_interpret)
+
+def kernel_intersect(scene, o, d, t_min, alive):
+    return intersect(scene, o, d, t_min, backend="pallas", alive=alive,
+                     interpret=True)
 
 
 def _rand_rays(n, seed=0):
@@ -20,7 +24,7 @@ def _rand_rays(n, seed=0):
 
 
 def _check_scene(scene, o, d):
-    fused = fused_intersect(scene, o, d, 1e-4, None)
+    fused = kernel_intersect(scene, o, d, 1e-4, None)
     t_ref, pid = nearest_hit_jnp(scene, o, d, 1e-4)
     ref = hit_attributes(scene, o, d, pid, jnp.isinf(t_ref), 1e-4)
     np.testing.assert_array_equal(np.asarray(fused.hit), np.asarray(ref.hit))
@@ -80,9 +84,9 @@ def _textured_scene():
 
 
 def test_fused_attrs_textured():
-    """Textured scenes use the 24-row fused extraction (UV + tex ids +
-    tangent frame in-kernel); albedo modulation and normal mapping must
-    match the hit_attributes oracle on every hit lane."""
+    """Textured scenes: albedo modulation and normal mapping through the
+    kernel's winners must match the hit_attributes oracle on every hit
+    lane."""
     scene = _textured_scene()
     assert scene.num_textures == 2
     n = 256
@@ -90,7 +94,7 @@ def test_fused_attrs_textured():
     o = jnp.zeros((n, 3), jnp.float32)
     d = jnp.asarray(np.stack([np.sin(th), np.sin(th[::-1]) * 0.8,
                               np.ones(n)], -1), jnp.float32)
-    fused = fused_intersect(scene, o, d, 1e-4, None)
+    fused = kernel_intersect(scene, o, d, 1e-4, None)
     t_ref, pid = nearest_hit_jnp(scene, o, d, 1e-4)
     ref = hit_attributes(scene, o, d, pid, jnp.isinf(t_ref), 1e-4)
     m = np.asarray(ref.hit)
@@ -110,14 +114,14 @@ def test_fused_attrs_textured():
 
 
 def test_fused_gradients_match_oracle():
-    """custom_vjp backward must reproduce the jnp path's gradients."""
+    """Gradients through the kernel path reproduce the jnp path's."""
     scene, _ = rt.builtin_scene("metal", pad=128)
     o, d = _rand_rays(128, seed=6)
 
     def loss_fused(albedo):
         import dataclasses
         s = dataclasses.replace(scene, sphere_albedo=albedo)
-        h = fused_intersect(s, o, d, 1e-4, None)
+        h = kernel_intersect(s, o, d, 1e-4, None)
         return jnp.sum(jnp.where(h.hit[:, None], h.albedo + h.normal, 0.0))
 
     def loss_ref(albedo):
@@ -134,23 +138,23 @@ def test_fused_gradients_match_oracle():
 def test_renderer_uses_fused_and_matches_jnp():
     scene, cam = rt.builtin_scene("room", aspect=1.0)
     basis = rt.camera_basis(cam)
-    from ray_tracer_tpu.renderer import render_frame
+    from ray_tracer.renderer import render_frame
     p_j = rt.RenderParams(width=16, height=16, bounces=2, skybox=True,
                           backend="jnp")
-    p_p = p_j.replace(backend="pallas")
+    p_p = p_j.replace(backend="pallas", interpret=True)
     a = np.asarray(render_frame(scene, basis, p_j, jnp.int32(0)))
     b = np.asarray(render_frame(scene, basis, p_p, jnp.int32(0)))
     np.testing.assert_allclose(a, b, rtol=2e-3, atol=1e-4)
 
 
 def test_fused_bitexact_same_winner():
-    """With raw-row extraction the fused path and the oracle share the SAME
-    recompute (hit_attributes_from_rows) on BIT-IDENTICAL rows, so every
-    Hit field must match exactly (not allclose) wherever the winner ids
-    agree (they can differ only on exact-t ties)."""
+    """The kernel path and the oracle share the SAME recompute
+    (hit_attributes) on the same table rows, so every Hit field must match
+    exactly (not allclose) wherever the winner ids agree (they can differ
+    only on exact-t ties)."""
     scene, _ = rt.builtin_scene("room", pad=128)
     o, d = _rand_rays(384, seed=7)
-    fused = fused_intersect(scene, o, d, 1e-4, None)
+    fused = kernel_intersect(scene, o, d, 1e-4, None)
     t_ref, pid = nearest_hit_jnp(scene, o, d, 1e-4)
     ref = hit_attributes(scene, o, d, pid, jnp.isinf(t_ref), 1e-4)
     same = (np.asarray(ref.hit)
@@ -161,101 +165,3 @@ def test_fused_bitexact_same_winner():
         np.testing.assert_array_equal(
             np.asarray(getattr(fused, field))[same],
             np.asarray(getattr(ref, field))[same], err_msg=field)
-
-
-def test_winner_rows_vjp_is_gather_transpose():
-    """_winner_rows' hand-written backward (scatter-add + pack transpose)
-    must equal the autodiff transpose of the oracle's table gather, leaf
-    for leaf, with miss-lane cotangents zeroed on both sides."""
-    from ray_tracer_tpu.ops.intersect import _pack_attrs, _winner_rows
-    scene, _ = rt.builtin_scene("room", pad=128)
-    o, d = _rand_rays(256, seed=8)
-    rows, pid, miss = _winner_rows(scene, o, d, 1e-4, None)
-    rng = np.random.default_rng(9)
-    g_rows = jnp.asarray(rng.normal(size=rows.shape), jnp.float32)
-    g_rows = jnp.where(miss[None, :], 0.0, g_rows)   # rows are (26|40, R)
-
-    _, vjp = jax.vjp(lambda sc: _winner_rows(sc, o, d, 1e-4, None)[0], scene)
-    (gs,) = vjp(g_rows)
-    _, vjp_ref = jax.vjp(lambda sc: _pack_attrs(sc)[pid], scene)
-    (gs_ref,) = vjp_ref(g_rows.T)
-
-    got = jax.tree_util.tree_leaves(gs)
-    want = jax.tree_util.tree_leaves(gs_ref)
-    assert len(got) == len(want)
-    nonzero = 0
-    for a, b in zip(got, want):
-        a, b = np.asarray(a), np.asarray(b)
-        if a.dtype.kind != "f":   # int leaves carry float0 cotangents
-            continue
-        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
-        nonzero += bool(np.any(a))
-    assert nonzero >= 4  # vertices, normals, albedo, emission... all flow
-
-
-def test_scatter_rows_kernel_matches_xla_scatter():
-    """The MXU one-hot scatter must equal .at[ids].add exactly-ish
-    (f32 sum order may differ) including dropped out-of-range lanes,
-    duplicate ids, and non-multiple-of-step ray counts."""
-    from ray_tracer_tpu.ops.pallas_intersect import scatter_rows_pallas
-    rng = np.random.default_rng(11)
-    R, P, W = 700, 300, 26          # P not a multiple of 128
-    ids = jnp.asarray(rng.integers(0, P + 1, size=R), jnp.int32)  # P = drop
-    g = jnp.asarray(rng.normal(size=(R, W)), jnp.float32)
-    got = np.asarray(scatter_rows_pallas(ids, g, P))
-    keep = np.asarray(ids) < P
-    want = np.zeros((P, W), np.float32)
-    np.add.at(want, np.asarray(ids)[keep], np.asarray(g)[keep])
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
-def test_scatter_soa_step_lists_match_dense():
-    """The step-list SoA scatter (r5: scalar-prefetch grid visits only
-    hit-bearing ray steps) must equal the dense-grid scatter BIT-FOR-BIT
-    at every occupancy — skipped steps carry only dropped ids, and
-    surviving steps keep their order, so the accumulation sequence is
-    identical. Covers sparse, dense, and fully-dead wavefronts."""
-    from ray_tracer_tpu.ops.pallas_intersect import (KConfig,
-                                                     scatter_rows_soa_pallas)
-    import os
-
-    rng = np.random.default_rng(5)
-    R, N, W = 4096, 500, 26
-    cfg = KConfig(rt=128, step_tiles=1)          # 32 steps of 128 lanes
-    for live_steps, name in ((2, "sparse"), (30, "dense"), (0, "all-dead")):
-        live = np.zeros(R, bool)
-        for t in rng.choice(32, size=live_steps, replace=False):
-            live[t * 128:(t + 1) * 128] = rng.random(128) < 0.7
-        ids = np.where(live, rng.integers(0, N, size=R), N).astype(np.int32)
-        g = rng.normal(size=(W, R)).astype(np.float32)
-        got = np.asarray(scatter_rows_soa_pallas(
-            jnp.asarray(ids), jnp.asarray(g), N, cfg=cfg))
-        os.environ["RTT_SCATTER_LISTS"] = "0"
-        try:
-            want = np.asarray(scatter_rows_soa_pallas(
-                jnp.asarray(ids), jnp.asarray(g), N, cfg=cfg))
-        finally:
-            del os.environ["RTT_SCATTER_LISTS"]
-        np.testing.assert_array_equal(got, want, err_msg=name)
-        # dropped lanes (id == N) must not contribute
-        keep = np.asarray(ids) < N
-        ref = np.zeros((N, W), np.float32)
-        np.add.at(ref, np.asarray(ids)[keep], np.asarray(g).T[keep])
-        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5,
-                                   err_msg=name)
-
-
-def test_mxu_extraction_matches_sum():
-    """extract="mxu" (one-hot contraction) must produce the same winner
-    rows as the masked-sum extraction — exact: one nonzero per output."""
-    from ray_tracer_tpu.ops.pallas_intersect import (
-        KConfig, nearest_hit_attrs_pallas)
-    scene, _ = rt.builtin_scene("room", pad=128)
-    o, d = _rand_rays(384, seed=10)
-    t_a, id_a, rows_a = nearest_hit_attrs_pallas(
-        scene, o, d, cfg=KConfig(extract="sum"))
-    t_b, id_b, rows_b = nearest_hit_attrs_pallas(
-        scene, o, d, cfg=KConfig(extract="mxu"))
-    np.testing.assert_array_equal(np.asarray(t_a), np.asarray(t_b))
-    np.testing.assert_array_equal(np.asarray(id_a), np.asarray(id_b))
-    np.testing.assert_array_equal(np.asarray(rows_a), np.asarray(rows_b))

@@ -4,8 +4,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ray_tracer_tpu import SceneBuilder
-from ray_tracer_tpu.ops.intersect import (
+from ray_tracer import SceneBuilder
+from ray_tracer.ops.intersect import (
     intersect, nearest_hit_jnp, sphere_ts, triangle_ts)
 
 

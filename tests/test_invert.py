@@ -1,10 +1,10 @@
-"""CPU-scale pin of the inverse-rendering north-star recovery config
-(VERDICT r3 #9): the EXACT recovery loop tools/invert_teapot.py runs on
-the chip — CRN finite-difference offset + hit-overlap-masked albedo
-autodiff + phased two-timescale schedule — run on a small scene with a
-fixed seed, asserting the error bounds. If any ingredient of the config
-rots (estimator, masking, schedule, fd anneal), this fails long before
-the next on-chip run."""
+"""CPU-scale pin of the inverse-rendering north-star recovery config:
+the EXACT recovery loop tools/invert_teapot.py runs — CRN
+finite-difference offset + hit-overlap-masked albedo autodiff + phased
+two-timescale schedule — run on a small scene with a fixed seed,
+asserting the error bounds. If any ingredient of the config rots
+(estimator, masking, schedule, fd anneal), this fails long before the
+next full-scale run."""
 
 import sys
 
@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import ray_tracer_tpu as rt
+import ray_tracer as rt
 
 sys.path.insert(0, "/root/repo")
 

@@ -1,11 +1,10 @@
-"""CPU regression test for per-vertex geometry recovery (VERDICT r4 #1).
+"""CPU regression test for per-vertex geometry recovery.
 
-Runs the actual production recovery loop (tools/invert_vertices.py:
+Runs the actual recovery loop (tools/invert_vertices.py:
 run_vertex_recovery — interior autodiff through recomputed normals +
 silhouette-classified boundary gradients + annealed Dirichlet prior +
 CRN multi-view loss) on a CPU-scale closed mesh, so the teapot demo's
-machinery can't silently rot. The full-scale on-chip result lives in
-artifacts/invert_vertices*.json.
+machinery can't silently rot.
 """
 
 import os
@@ -16,8 +15,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.grad.topology import apply_vertex_offsets, build_topology
+import ray_tracer as rt
+from ray_tracer.grad.topology import apply_vertex_offsets, build_topology
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
@@ -50,9 +49,9 @@ def octasphere(subdiv=2, radius=1.0):
 
 def test_sobolev_precondition_solves_metric():
     """(I + λL) p = g to CG tolerance, and λ=0 is the identity. The
-    preconditioner is the r5 fix for the teapot recovery plateau (6.1%
-    RMS raw-gradient vs 0.17% preconditioned, on-chip 3-seed artifact)."""
-    from ray_tracer_tpu.grad.topology import (laplacian_apply,
+    preconditioner is the fix for the teapot recovery plateau of raw
+    gradient descent."""
+    from ray_tracer.grad.topology import (laplacian_apply,
                                               sobolev_precondition)
     verts, faces = octasphere(subdiv=1)
     normals = verts / np.linalg.norm(verts, axis=1, keepdims=True)

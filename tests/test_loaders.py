@@ -9,8 +9,8 @@ import os
 import numpy as np
 import pytest
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.io import load_meshes, load_model
+import ray_tracer as rt
+from ray_tracer.io import load_meshes, load_model
 
 ASSETS = "/root/reference/assets"
 
@@ -110,7 +110,7 @@ def test_obj_quad_triangulation(tmp_path):
 def test_obj_malformed_face_skipped_python(tmp_path, monkeypatch):
     """Out-of-range position indices skip the face (no crash) — pure-Python
     parser (ADVICE r1: native parser OOB read; both paths now skip)."""
-    from ray_tracer_tpu.utils import native
+    from ray_tracer.utils import native
     monkeypatch.setattr(native, "parse_obj", lambda p: None)
     p = tmp_path / "bad.obj"
     p.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\n"
@@ -121,7 +121,7 @@ def test_obj_malformed_face_skipped_python(tmp_path, monkeypatch):
 
 
 def test_obj_malformed_face_skipped_native(tmp_path):
-    from ray_tracer_tpu.utils import native
+    from ray_tracer.utils import native
     if not native.available():
         import pytest
         pytest.skip("librtt_native.so not built")
@@ -143,7 +143,7 @@ def test_gltf_shared_texture_decoded_once(tmp_path, monkeypatch):
 
     from PIL import Image
 
-    from ray_tracer_tpu.io import loaders
+    from ray_tracer.io import loaders
 
     buf = _io.BytesIO()
     Image.new("RGB", (2, 2), (255, 0, 0)).save(buf, format="PNG")

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ray_tracer_tpu import materials
+from ray_tracer import materials
 
 
 def test_reflect():

@@ -2,8 +2,8 @@
 
 import logging
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.utils.metrics import FrameClock, StageTimer
+import ray_tracer as rt
+from ray_tracer.utils.metrics import FrameClock, StageTimer
 
 
 def test_frame_clock_stats():
@@ -41,7 +41,7 @@ def test_stage_timer_accumulates_and_logs(caplog):
         pass
     rep = st.report()
     assert set(rep) == {"a", "b"} and rep["a"] >= 0.0
-    with caplog.at_level(logging.INFO, logger="ray_tracer_tpu.metrics"):
+    with caplog.at_level(logging.INFO, logger="ray_tracer.metrics"):
         st.log()
     assert any("stages:" in r.message for r in caplog.records)
 

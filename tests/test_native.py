@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from ray_tracer_tpu.utils import native
+from ray_tracer.utils import native
 
 ASSETS = "/root/reference/assets"
 needs_native = pytest.mark.skipif(not native.available(),
@@ -43,8 +43,8 @@ def test_morton_order_matches_numpy():
                                    "cube2.obj", "poly_sphere.obj", "cube.obj"])
 def test_native_obj_matches_python(fname):
     """The C++ parser and the pure-Python fallback must agree exactly."""
-    import ray_tracer_tpu.io.loaders as L
-    from ray_tracer_tpu.utils import native as nat
+    import ray_tracer.io.loaders as L
+    from ray_tracer.utils import native as nat
 
     path = os.path.join(ASSETS, fname)
     fast = L.load_obj(path)
@@ -81,7 +81,7 @@ def test_native_obj_from_string(tmp_path):
 
 
 def test_missing_library_returns_none(monkeypatch):
-    from ray_tracer_tpu.utils import native as nat
+    from ray_tracer.utils import native as nat
     monkeypatch.setattr(nat, "_lib", None)
     monkeypatch.setattr(nat, "_load_failed", True)
     assert nat.morton_order(np.zeros((4, 3), np.float32)) is None

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.lights import build_light_table, sample_lights
-from ray_tracer_tpu.renderer import render_frame
+import ray_tracer as rt
+from ray_tracer.lights import build_light_table, sample_lights
+from ray_tracer.renderer import render_frame
 
 
 def test_light_table_room():
@@ -120,7 +120,7 @@ def test_overflow_emitters_still_counted(monkeypatch):
     still arrive via BSDF sampling (ADVICE r1: blanket suppression darkened
     scenes with more emitters than table slots). MAX_LIGHTS is shrunk to 1
     so the out-of-table light carries a large, testable share."""
-    import ray_tracer_tpu.lights as lights_mod
+    import ray_tracer.lights as lights_mod
     monkeypatch.setattr(lights_mod, "MAX_LIGHTS", 1)
 
     def make_scene():
@@ -143,7 +143,7 @@ def test_overflow_emitters_still_counted(monkeypatch):
     assert np.asarray(lt.entry_valid).sum() == 1
 
     cam = rt.Camera(origin=(0, 8, 12), look_at=(0, 0, 0), aspect=1.0)
-    from ray_tracer_tpu.renderer import render_progressive, camera_basis
+    from ray_tracer.renderer import render_progressive, camera_basis
     basis = camera_basis(cam)
     means = {}
     for nee in (False, True):
@@ -164,7 +164,7 @@ def test_overflow_emitters_still_counted(monkeypatch):
 def _numeric_pdf(h, r, n, s, cosine):
     """Reference pdf at omega(h) by numeric change-of-variables: sum over
     BOTH preimage sheets of p_h(h_i) * (area at h_i) / (area at omega)."""
-    from ray_tracer_tpu.lights import TWO_PI
+    from ray_tracer.lights import TWO_PI
 
     def to_omega(hv):
         v = (1.0 - s) * hv + s * r
@@ -204,7 +204,7 @@ def test_glossy_mix_pdf_matches_numeric_jacobian():
     """glossy_mix_pdf must equal the numeric pushforward density of
     materials.scatter's lerp at random points — single-sheet (s < 1/2)
     and two-sheet (s > 1/2) regimes, uniform and cosine hemispheres."""
-    from ray_tracer_tpu.lights import glossy_mix_pdf
+    from ray_tracer.lights import glossy_mix_pdf
 
     rng = np.random.default_rng(7)
     n = np.array([0.0, 0.0, 1.0])
@@ -228,7 +228,7 @@ def test_glossy_mix_pdf_matches_numeric_jacobian():
 
 def test_glossy_mix_pdf_integrates_to_one():
     """Lat-long quadrature of the lobe pdf over the sphere ~ 1."""
-    from ray_tracer_tpu.lights import glossy_mix_pdf
+    from ray_tracer.lights import glossy_mix_pdf
 
     n = jnp.asarray([0.0, 0.0, 1.0], jnp.float32)
     r = jnp.asarray([0.35, 0.2, 0.91], jnp.float32)
@@ -354,7 +354,7 @@ def test_mis_with_compaction_bitexact():
     scene, cam = rt.builtin_scene("room", aspect=1.0)
     basis = rt.camera_basis(cam)
     base = rt.RenderParams(width=32, height=32, bounces=2, skybox=True,
-                           nee=True, backend="pallas")
+                           nee=True, backend="pallas", interpret=True)
     a = np.asarray(render_frame(scene, basis, base, jnp.int32(0)))
     b = np.asarray(render_frame(scene, basis,
                                 base.replace(compaction="octant"),
@@ -369,7 +369,7 @@ def test_nee_unbiased_on_room_quirk_normals():
     while suppressing (or MIS-down-weighting) the live BSDF path —
     measured 7% total image energy loss, identical with and without MIS.
     NEE (both estimators) must match BSDF-only on the converged room."""
-    from ray_tracer_tpu.renderer import render_progressive
+    from ray_tracer.renderer import render_progressive
 
     scene, cam = rt.builtin_scene("room", aspect=1.0)
     basis = rt.camera_basis(cam)

@@ -1,21 +1,18 @@
 """Pallas closest-hit kernel vs the jnp oracle.
 
-On the CPU test harness the kernel runs in interpreter mode (same program,
-no Mosaic compile); on TPU (RTT_TEST_PLATFORM=tpu) it runs compiled.
+On the CPU test harness the kernel runs in the Pallas interpreter (asked
+for explicitly); tests/test_kernel.py also runs its cases compiled on the
+GPU.
 """
 
-import os
-
 import numpy as np
-import jax
 import jax.numpy as jnp
-import pytest
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.ops.intersect import nearest_hit_jnp
-from ray_tracer_tpu.ops.pallas_intersect import nearest_hit_pallas
+import ray_tracer as rt
+from ray_tracer.ops.intersect import nearest_hit_jnp, occluded
+from ray_tracer.ops.pallas_intersect import nearest_hit_pallas
 
-INTERPRET = jax.default_backend() != "tpu"
+INTERPRET = True
 
 
 def _random_rays(n, seed=0, spread=6.0):
@@ -92,44 +89,6 @@ def test_alive_mask_dead_lanes_miss():
                                t_ref[0::2][np.isfinite(t[0::2])], rtol=3e-4)
 
 
-def test_step_lists_match_dense_grid():
-    """Ray-step lists (r5: the closest-hit/any-hit grids skip steps with
-    no live lane via scalar prefetch) must reproduce the dense grid
-    BIT-FOR-BIT at every occupancy: sparse whole-step liveness (most
-    steps skipped), mixed, all-live, and all-dead wavefronts. Skipped
-    steps' outputs must be the dead-lane values (inf t / id 0 / blocked
-    False), exactly as the dense kernel emits them."""
-    from ray_tracer_tpu.ops.pallas_intersect import (
-        KConfig, anyhit_pallas, nearest_hit_attrs_pallas)
-    scene, _ = rt.builtin_scene("room", pad=128)
-    cfg = KConfig(rt=128, step_tiles=1)          # 24 steps at R=3072
-    cfg_dense = cfg._replace(step_lists=False)
-    R = 3072
-    o, d = _random_rays(R, seed=21, spread=3.0)
-    rng = np.random.default_rng(22)
-    cases = {
-        "sparse": np.repeat(rng.random(R // 128) < 0.15, 128),
-        "mixed": rng.random(R) < 0.4,
-        "all-live": np.ones(R, bool),
-        "all-dead": np.zeros(R, bool),
-    }
-    for name, alive_np in cases.items():
-        alive = jnp.asarray(alive_np)
-        got = nearest_hit_attrs_pallas(scene, o, d, alive=alive,
-                                       interpret=INTERPRET, cfg=cfg)
-        want = nearest_hit_attrs_pallas(scene, o, d, alive=alive,
-                                        interpret=INTERPRET, cfg=cfg_dense)
-        for g, w, field in zip(got, want, ("t", "id", "rows")):
-            np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
-                                          err_msg=f"{name}:{field}")
-        gb = anyhit_pallas(scene, o, d, alive=alive, interpret=INTERPRET,
-                           cfg=cfg)
-        wb = anyhit_pallas(scene, o, d, alive=alive, interpret=INTERPRET,
-                           cfg=cfg_dense)
-        np.testing.assert_array_equal(np.asarray(gb), np.asarray(wb),
-                                      err_msg=f"{name}:anyhit")
-
-
 def test_morton_sort_preserves_images():
     verts = np.random.default_rng(11).normal(size=(60, 3, 3)) * 3
     def build(sort):
@@ -147,16 +106,12 @@ def test_morton_sort_preserves_images():
 def test_renderer_pallas_backend_matches_jnp():
     scene, cam = rt.builtin_scene("room", aspect=1.0)
     basis = rt.camera_basis(cam)
-    from ray_tracer_tpu.renderer import render_frame
+    from ray_tracer.renderer import render_frame
     p_j = rt.RenderParams(width=16, height=16, bounces=2, skybox=True,
                           backend="jnp")
     img_j = render_frame(scene, basis, p_j, jnp.int32(0))
-    import ray_tracer_tpu.ops.intersect as intersect_mod
-    import ray_tracer_tpu.ops.pallas_intersect as pk
-
-    # pallas auto-interprets off-TPU — no patching needed
     p_p = rt.RenderParams(width=16, height=16, bounces=2, skybox=True,
-                          backend="pallas")
+                          backend="pallas", interpret=True)
     img_p = render_frame(scene, basis, p_p, jnp.int32(0))
     np.testing.assert_allclose(np.asarray(img_j), np.asarray(img_p),
                                rtol=1e-4, atol=1e-5)
@@ -167,22 +122,21 @@ def test_renderer_backends_match_with_coherent_scatter():
     backends (blocked pixel order for both) must stay bit-comparable."""
     scene, cam = rt.builtin_scene("room", aspect=1.0)
     basis = rt.camera_basis(cam)
-    from ray_tracer_tpu.renderer import render_frame
+    from ray_tracer.renderer import render_frame
     kw = dict(width=16, height=16, bounces=2, skybox=True,
               coherent_scatter=True)
     img_j = render_frame(scene, basis,
                          rt.RenderParams(backend="jnp", **kw), jnp.int32(0))
     img_p = render_frame(scene, basis,
-                         rt.RenderParams(backend="pallas", **kw),
+                         rt.RenderParams(backend="pallas", interpret=True,
+                                         **kw),
                          jnp.int32(0))
     np.testing.assert_allclose(np.asarray(img_j), np.asarray(img_p),
                                rtol=1e-4, atol=1e-5)
 
 
 def test_anyhit_matches_oracle_room():
-    """Early-exit shadow kernel == jnp occlusion oracle (random segments)."""
-    from ray_tracer_tpu.ops.pallas_intersect import anyhit_pallas
-    from ray_tracer_tpu.ops.intersect import nearest_hit_jnp
+    """Kernel shadow query == jnp occlusion oracle (random segments)."""
 
     scene, _ = rt.builtin_scene("room", aspect=1.0)
     rng = np.random.default_rng(3)
@@ -190,181 +144,75 @@ def test_anyhit_matches_oracle_room():
     o = jnp.asarray(rng.uniform(-1.5, 1.5, (R, 3)) + [3, 1.5, 0], jnp.float32)
     tgt = jnp.asarray(rng.uniform(-2, 2, (R, 3)) + [3, 1.5, 0], jnp.float32)
     d = tgt - o
-    got = np.asarray(anyhit_pallas(scene, o, d))
+    got = np.asarray(occluded(scene, o, d, backend="pallas",
+                              interpret=INTERPRET))
     t, _ = nearest_hit_jnp(scene, o, d, 1e-4)
     want = np.asarray(t < 1.0 - 1e-3)
     np.testing.assert_array_equal(got, want)
 
 
 def test_anyhit_alive_mask_and_tmax():
-    from ray_tracer_tpu.ops.pallas_intersect import anyhit_pallas
-
     scene, _ = rt.builtin_scene("metal", aspect=1.0)
     R = 256
     # aim at the center sphere (at origin area) from z = +5
     o = jnp.tile(jnp.asarray([[0.0, 0.0, 3.0]], jnp.float32), (R, 1))
     d = jnp.tile(jnp.asarray([[0.0, 0.0, -6.0]], jnp.float32), (R, 1))
     alive = jnp.arange(R) % 2 == 0
-    got = np.asarray(anyhit_pallas(scene, o, d, alive=alive))
+    got = np.asarray(occluded(scene, o, d, backend="pallas", alive=alive,
+                              interpret=INTERPRET))
     assert got[::2].all()          # live lanes: blocked by the spheres
     assert not got[1::2].any()     # dead lanes: never blocked
     # a segment too short to reach the sphere is unoccluded
-    short = np.asarray(anyhit_pallas(scene, o, d * 0.1))
+    short = np.asarray(occluded(scene, o, d * 0.1, backend="pallas",
+                                interpret=INTERPRET))
     assert not short.any()
 
 
-def _check_cfg(scene, o, d, cfg, t_min=1e-4):
-    from ray_tracer_tpu.ops.pallas_intersect import (
-        nearest_hit_attrs_pallas)
-    from ray_tracer_tpu.ops.intersect import _pack_attrs
+def _mesh_with_sphere(n_tris, seed):
+    rng = np.random.default_rng(seed)
+    b = rt.SceneBuilder()
+    for t in rng.normal(size=(n_tris, 3, 3)) * 5:
+        b.add_mesh(t, np.ones((3, 3)), [0, 1, 2])
+    b.add_sphere((0, 0, 0), 1.5, (1, 0.5, 0.2), smoothness=0.4)
+    return b.build(pad=128)
 
-    t_ref, id_ref = nearest_hit_jnp(scene, o, d, t_min)
-    t_pal, id_pal, rows = nearest_hit_attrs_pallas(
-        scene, o, d, t_min, interpret=INTERPRET, cfg=cfg)
-    t_ref, t_pal = np.asarray(t_ref), np.asarray(t_pal)
-    id_ref, id_pal = np.asarray(id_ref), np.asarray(id_pal)
-    hit_ref, hit_pal = np.isfinite(t_ref), np.isfinite(t_pal)
-    np.testing.assert_array_equal(hit_ref, hit_pal)
-    np.testing.assert_allclose(t_pal[hit_pal], t_ref[hit_ref], rtol=3e-4,
-                               atol=1e-5)
-    diff = (id_pal != id_ref) & hit_ref
-    if diff.any():
-        np.testing.assert_allclose(t_pal[diff], t_ref[diff], rtol=3e-4)
-    # winner rows bit-identical to the oracle's gather on agreeing lanes
-    same = hit_ref & (id_pal == id_ref)
-    want = np.asarray(_pack_attrs(scene))[id_ref[same]]
-    np.testing.assert_array_equal(np.asarray(rows).T[same], want)
+
+def _check_rows(scene, o, d):
+    """Hits, t and the winners' merged-table rows against the oracle."""
+    from ray_tracer.ops.intersect import _pack_attrs
+    _check(scene, o, d)
+    t_ref, id_ref = map(np.asarray, nearest_hit_jnp(scene, o, d, 1e-4))
+    _, id_pal = nearest_hit_pallas(scene, o, d, interpret=INTERPRET)
+    same = np.isfinite(t_ref) & (np.asarray(id_pal) == id_ref)
+    table = np.asarray(_pack_attrs(scene))
+    np.testing.assert_array_equal(table[np.asarray(id_pal)[same]],
+                                  table[id_ref[same]])
 
 
 def test_supers_two_level_prepass_parity():
-    """KConfig.supers (two-stage super-cluster prepass, VERDICT r2 #6)
-    must be invisible to results: hits, t, and extracted winner rows all
-    match the oracle across cluster/supers combinations — including a
-    partial last super and a tri count not divisible by supers*cluster."""
-    from ray_tracer_tpu.ops.pallas_intersect import KConfig
-
-    rng = np.random.default_rng(21)
-    b = rt.SceneBuilder()
-    for t in rng.normal(size=(300, 3, 3)) * 5:
-        b.add_mesh(t, np.ones((3, 3)), [0, 1, 2])
-    b.add_sphere((0, 0, 0), 1.5, (1, 0.5, 0.2), smoothness=0.4)
-    scene = b.build(pad=128)   # 384 padded tris
-    o, d = _random_rays(512, seed=22, spread=8.0)
-    for csize, ss in ((32, 8), (16, 8), (32, 16)):
-        cfg = KConfig(rt=128, cluster=csize, tri_rows=min(128, csize),
-                      step_tiles=1, supers=ss)
-        _check_cfg(scene, o, d, cfg)
+    """The two-level walk (super-clusters of 8 clusters of 64 triangles)
+    must be invisible to results, including a partial last super-cluster
+    and a triangle count that is no multiple of the cluster size."""
+    from ray_tracer.ops.pallas_intersect import CLUSTER, SUPER
+    scene = _mesh_with_sphere(1100, seed=21)
+    assert scene.num_tris > 2 * CLUSTER * SUPER
+    assert scene.num_tris % (CLUSTER * SUPER) and scene.num_tris % CLUSTER
+    _check_rows(scene, *_random_rays(512, seed=22, spread=8.0))
 
 
 def test_supers_room_scene_parity():
-    from ray_tracer_tpu.ops.pallas_intersect import KConfig
     scene, _ = rt.builtin_scene("room", pad=128)
-    o, d = _random_rays(256, seed=23)
-    cfg = KConfig(rt=128, cluster=16, tri_rows=16, step_tiles=1, supers=8)
-    _check_cfg(scene, o, d, cfg)
-
-
-def test_supers_validation():
-    import pytest as _pytest
-    from ray_tracer_tpu.ops.pallas_intersect import KConfig
-    scene, _ = rt.builtin_scene("room", pad=128)
-    o, d = _random_rays(128, seed=24)
-    with _pytest.raises(ValueError, match="multiple of 8"):
-        nearest_hit_pallas(scene, o, d, interpret=INTERPRET,
-                           cfg=KConfig(supers=4))
-    with _pytest.raises(ValueError, match="span"):
-        nearest_hit_pallas(scene, o, d, interpret=INTERPRET,
-                           cfg=KConfig(supers=8, traversal="centerout"))
-
-
-def test_mxu_mt_engine_parity():
-    """KConfig.mt='mxu' (Möller–Trumbore as MXU contractions) must match
-    the oracle like the VPU engine does — alone and combined with the
-    two-level prepass, textured and untextured plane layouts."""
-    from ray_tracer_tpu.ops.pallas_intersect import KConfig
-
-    rng = np.random.default_rng(31)
-    b = rt.SceneBuilder()
-    for t in rng.normal(size=(300, 3, 3)) * 5:
-        b.add_mesh(t, np.ones((3, 3)), [0, 1, 2])
-    b.add_sphere((0, 0, 0), 1.5, (1, 0.5, 0.2), smoothness=0.4)
-    scene = b.build(pad=128)
-    o, d = _random_rays(512, seed=32, spread=8.0)
-    _check_cfg(scene, o, d, KConfig(rt=128, cluster=128, step_tiles=1,
-                                    mt="mxu"))
-    _check_cfg(scene, o, d, KConfig(rt=128, cluster=32, tri_rows=32,
-                                    step_tiles=1, mt="mxu", supers=8))
-
-
-def test_mxu_mt_textured_offset():
-    """Textured scenes shift the mxu-prep columns to 48+: the winner-row
-    extraction AND the matmul operands must both read the right columns."""
-    from ray_tracer_tpu.ops.pallas_intersect import KConfig
-    from ray_tracer_tpu.io import load_model
-    import os as _os
-    teapot = "/root/reference/assets/the_utah_teapot.glb"
-    if not _os.path.exists(teapot):
-        pytest.skip("reference assets unavailable")
-    b = rt.SceneBuilder()
-    load_model(teapot, b, placement="origin", smoothness=0.3)
-    scene = b.build()
-    o, d = _random_rays(256, seed=33, spread=3.0)
-    _check_cfg(scene, o, d, KConfig(rt=128, step_tiles=1, mt="mxu"))
+    _check_rows(scene, *_random_rays(256, seed=23))
 
 
 def test_anyhit_engines_match_oracle():
-    """Any-hit kernel with the r3 engines (mxu MT, supers prepass, both):
-    blocked-mask parity against the closest-hit oracle."""
-    from ray_tracer_tpu.ops.pallas_intersect import KConfig, anyhit_pallas
-
-    rng = np.random.default_rng(41)
-    b = rt.SceneBuilder()
-    for t in rng.normal(size=(300, 3, 3)) * 5:
-        b.add_mesh(t, np.ones((3, 3)), [0, 1, 2])
-    b.add_sphere((0, 0, 0), 1.5, (1, 1, 1))
-    scene = b.build(pad=128)
+    """Shadow queries on a mesh of several super-clusters: blocked-mask
+    parity against the closest-hit oracle."""
+    scene = _mesh_with_sphere(1100, seed=41)
     o, d = _random_rays(384, seed=42, spread=8.0)
     t_ref, _ = nearest_hit_jnp(scene, o, d, 1e-4)
     want = np.asarray(t_ref) < (1.0 - 1e-3)
-    for cfg in (KConfig(rt=128, step_tiles=1, mt="mxu"),
-                KConfig(rt=128, cluster=32, tri_rows=32, step_tiles=1,
-                        supers=8),
-                KConfig(rt=128, cluster=32, tri_rows=32, step_tiles=1,
-                        supers=8, mt="mxu")):
-        got = np.asarray(anyhit_pallas(scene, o, d, interpret=INTERPRET,
-                                       cfg=cfg))
-        np.testing.assert_array_equal(got, want)
-
-
-def test_env_config_matches_defaults(monkeypatch):
-    """The production path (env_config, no RTT_* overrides) must get the
-    measured-best KConfig defaults — one source of truth (VERDICT r3:
-    env_config's hardcoded "sum" fallback silently overrode the tuned
-    extract="mxu" default on every production call)."""
-    from ray_tracer_tpu.ops.pallas_intersect import KConfig, env_config
-
-    for k in list(os.environ):
-        if k.startswith("RTT_"):
-            monkeypatch.delenv(k)
-    assert env_config() == KConfig()
-
-
-def test_scatter_rows_soa_matches_xla():
-    """The SoA-orientation MXU scatter (the winner-row VJP's transpose-free
-    path) must equal the XLA scatter-add exactly — one-hot HIGHEST-precision
-    contraction has exactly one nonzero per output sum."""
-    from ray_tracer_tpu.ops.pallas_intersect import (KConfig,
-                                                     scatter_rows_soa_pallas)
-
-    rng = np.random.default_rng(3)
-    R, W, N = 700, 26, 300
-    ids = rng.integers(0, N + 40, size=R).astype(np.int32)  # some dropped
-    g = rng.normal(size=(W, R)).astype(np.float32)
-    want = np.zeros((N, W), np.float32)
-    for i, pid in enumerate(ids):
-        if 0 <= pid < N:
-            want[pid] += g[:, i]
-    got = np.asarray(scatter_rows_soa_pallas(
-        jnp.asarray(ids), jnp.asarray(g), N, interpret=INTERPRET,
-        cfg=KConfig(rt=128, step_tiles=1)))
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert want.any() and not want.all()
+    got = np.asarray(occluded(scene, o, d, backend="pallas",
+                              interpret=INTERPRET))
+    np.testing.assert_array_equal(got, want)

@@ -7,7 +7,7 @@ The generator must be bit-exact to the reference hash
 import numpy as np
 import jax.numpy as jnp
 
-from ray_tracer_tpu import sampling
+from ray_tracer import sampling
 
 
 def _reference_next(seed: int):
@@ -83,7 +83,7 @@ def test_r2_sequence_is_stratified():
     samples spread over an 8×8 grid with no crowding (max cell count 3+
     and many empty cells are routine for 64 RANDOM points)."""
     import jax.numpy as jnp
-    from ray_tracer_tpu import sampling
+    from ray_tracer import sampling
 
     n = jnp.arange(64, dtype=jnp.uint32)
     ax, ay = sampling.r2_point(n, jnp.uint32(0), jnp.uint32(0))
@@ -100,8 +100,8 @@ def test_qmc_converges_faster_on_aa_edges():
     sample position, so this isolates the AA sampler. 16 accumulated QMC
     frames must beat 16 PCG frames against the converged image."""
     import jax.numpy as jnp
-    import ray_tracer_tpu as rt
-    from ray_tracer_tpu.renderer import camera_basis, render_progressive
+    import ray_tracer as rt
+    from ray_tracer.renderer import camera_basis, render_progressive
 
     b = rt.SceneBuilder()
     b.add_sphere((0, 0, -4), 1.0, (0, 0, 0), emission=(1, 1, 1),
@@ -123,8 +123,8 @@ def test_qmc_converges_faster_on_aa_edges():
 
 def test_qmc_off_is_bitwise_reference():
     import jax.numpy as jnp
-    import ray_tracer_tpu as rt
-    from ray_tracer_tpu.renderer import camera_basis, render_frame
+    import ray_tracer as rt
+    from ray_tracer.renderer import camera_basis, render_frame
 
     scene, cam = rt.builtin_scene("room", aspect=1.0)
     p = rt.RenderParams(width=12, height=12, bounces=2, backend="jnp")

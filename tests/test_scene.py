@@ -2,7 +2,7 @@
 
 import numpy as np
 
-import ray_tracer_tpu as rt
+import ray_tracer as rt
 
 
 def test_builtin_scene_counts():

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.parallel import make_mesh, render_frame_distributed
-from ray_tracer_tpu.renderer import render_frame
+import ray_tracer as rt
+from ray_tracer.parallel import make_mesh, render_frame_distributed
+from ray_tracer.renderer import render_frame
 
 
 @pytest.fixture(scope="module")
@@ -67,14 +67,13 @@ def test_entry_compiles():
 
 
 def test_sharded_pallas_matches_single_device():
-    """PRODUCTION configuration parity (VERDICT r2 #4b): the Pallas kernels
-    (interpret mode off-TPU — same code path that compiles on silicon)
-    under shard_map over 8 devices must match the single-device pallas
-    render bit-for-bit: same blocked 16x8 pixel order, same per-pixel RNG
-    streams, fused in-kernel winner extraction on both sides."""
+    """Kernel-path parity: the Pallas kernel (in the interpreter here; the
+    same kernel compiles for the GPU) under shard_map over 8 devices must
+    match the single-device kernel render bit-for-bit: same blocked 16x8
+    pixel order, same per-pixel RNG streams."""
     scene, cam = rt.builtin_scene("room", aspect=2.0)
     params = rt.RenderParams(width=64, height=32, bounces=2, skybox=True,
-                             backend="pallas")
+                             backend="pallas", interpret=True)
     basis = rt.camera_basis(cam.replace(aspect=params.aspect))
     a = np.asarray(render_frame(scene, basis, params, jnp.int32(0)))
     b = np.asarray(render_frame_distributed(scene, basis, params, 0,
@@ -83,15 +82,15 @@ def test_sharded_pallas_matches_single_device():
 
 
 def test_sharded_pallas_nee_grad_matches_single_device():
-    """Inverse-rendering step on the production path: pallas backend + NEE
-    (any-hit occlusion kernel) under shard_map; scene gradients (through
-    the custom_vjp scatter-add) must match the single-device gradients."""
+    """Inverse-rendering step on the kernel path: pallas backend + NEE
+    (kernel shadow queries) under shard_map; scene gradients must match
+    the single-device gradients."""
     import jax.tree_util as jtu
-    from ray_tracer_tpu.grad.inverse import image_mse, split_scene
+    from ray_tracer.grad.inverse import image_mse, split_scene
 
     scene, cam = rt.builtin_scene("room", aspect=1.0)
     params = rt.RenderParams(width=16, height=16, bounces=1, skybox=True,
-                             nee=True, backend="pallas")
+                             nee=True, backend="pallas", interpret=True)
     basis = rt.camera_basis(cam)
     target = jnp.zeros((16, 16, 3), jnp.float32)
     trainable, _ = split_scene(scene)
@@ -106,19 +105,19 @@ def test_sharded_pallas_nee_grad_matches_single_device():
 
 
 def test_sharded_chunked_grad_matches_full():
-    """BASELINE config 5 at production shape (VERDICT r3 missing #3): the
-    large-frame multi-chip gradient — pixel chunks scanned PER DEVICE
-    (bounding per-device HBM like the single-chip chunked path) with one
-    psum of the scene cotangents — must match the whole-frame gradient up
-    to fp summation order, on the production Pallas backend."""
-    from ray_tracer_tpu.grad.inverse import (
+    """BASELINE config 5: the large-frame multi-device gradient — pixel
+    chunks scanned PER DEVICE (bounding per-device memory like the
+    single-device chunked path) with one psum of the scene cotangents —
+    must match the whole-frame gradient up to fp summation order, on the
+    kernel backend."""
+    from ray_tracer.grad.inverse import (
         image_mse, merge_scene, sharded_chunked_mse_value_and_grad,
         split_scene)
-    from ray_tracer_tpu.renderer import render_pixels
+    from ray_tracer.renderer import render_pixels
 
     scene, cam = rt.builtin_scene("metal", aspect=2.0)
     params = rt.RenderParams(width=64, height=32, bounces=2, skybox=True,
-                             backend="pallas")
+                             backend="pallas", interpret=True)
     basis = rt.camera_basis(cam.replace(aspect=2.0))
     target = jax.lax.stop_gradient(
         render_frame(scene, basis, params, jnp.int32(1)))
@@ -142,11 +141,10 @@ def test_sharded_chunked_grad_matches_full():
 
 
 def test_train_step_chunked_sharded():
-    """make_train_step(grad_chunks=2, mesh=...) — the combination VERDICT
-    r3 flagged as having no code path — must take the same optimization
-    step as the single-device whole-frame path."""
+    """make_train_step(grad_chunks=2, mesh=...) must take the same
+    optimization step as the single-device whole-frame path."""
     import optax
-    from ray_tracer_tpu.grad.inverse import make_train_step
+    from ray_tracer.grad.inverse import make_train_step
 
     scene, cam = rt.builtin_scene("metal", aspect=1.0)
     params = rt.RenderParams(width=32, height=32, bounces=1, skybox=True,
@@ -171,14 +169,14 @@ def test_train_step_chunked_sharded():
 
 
 def test_per_chunk_psum_inside_scan_body():
-    """VERDICT r4 #5: the gradient all-reduce must ride INSIDE the chunk
-    scan (one psum per chunk overlapping the next chunk's backward), not
-    as one post-scan collective. Structural check on the compiled HLO:
+    """The gradient all-reduce must ride INSIDE the chunk scan (one psum
+    per chunk overlapping the next chunk's backward), not as one
+    post-scan collective. Structural check on the compiled HLO:
     every all-reduce sits in a while-body region (the lowered lax.scan),
     none in the entry computation."""
-    from ray_tracer_tpu.grad.inverse import (
+    from ray_tracer.grad.inverse import (
         merge_scene, sharded_chunked_mse_value_and_grad, split_scene)
-    from ray_tracer_tpu.renderer import render_pixels
+    from ray_tracer.renderer import render_pixels
 
     scene, cam = rt.builtin_scene("metal", aspect=2.0)
     params = rt.RenderParams(width=64, height=32, bounces=1, backend="jnp")

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.texture import sample_bilinear, srgb_to_linear
-from ray_tracer_tpu.renderer import render_frame
+import ray_tracer as rt
+from ray_tracer.texture import sample_bilinear, srgb_to_linear
+from ray_tracer.renderer import render_frame
 
 ASSETS = "/root/reference/assets"
 needs_assets = pytest.mark.skipif(
@@ -61,7 +61,7 @@ def _checker_scene(emission_strength=0.0):
 
 
 def test_textured_albedo_at_hit():
-    from ray_tracer_tpu.ops.intersect import intersect
+    from ray_tracer.ops.intersect import intersect
     scene = _checker_scene()
     # uv(0.25, 0.25) → checker texel (0,0) = white; uv(0.75, 0.25) → black
     o = jnp.asarray([[-0.5, 0.5, 2.0], [0.5, 0.5, 2.0]])
@@ -94,7 +94,7 @@ def test_texture_gradients_flow_to_texels():
 
 
 def test_normal_map_tilts_shading_normal():
-    from ray_tracer_tpu.ops.intersect import intersect
+    from ray_tracer.ops.intersect import intersect
     b = rt.SceneBuilder(texture_resolution=4)
     # normal map pointing uniformly toward +u tangent direction
     nm = np.zeros((2, 2, 3), np.float32)
@@ -138,7 +138,7 @@ class TestGatedFetch:
 
     @pytest.mark.parametrize("live_tiles", [1, 2, 10, 30, 64])
     def test_matches_plain_on_live_lanes(self, live_tiles):
-        from ray_tracer_tpu.texture import sample_bilinear_gated
+        from ray_tracer.texture import sample_bilinear_gated
         stack, tex_id, uv, live = self._data(64, live_tiles)
         plain = np.asarray(sample_bilinear(stack, tex_id, uv))
         gated = np.asarray(jax.jit(sample_bilinear_gated)(
@@ -151,7 +151,7 @@ class TestGatedFetch:
                                    rtol=3e-7, atol=1e-7)
 
     def test_dead_tiles_white(self):
-        from ray_tracer_tpu.texture import sample_bilinear_gated
+        from ray_tracer.texture import sample_bilinear_gated
         stack, tex_id, uv, live = self._data(64, 2)
         gated = np.asarray(sample_bilinear_gated(stack, tex_id, uv, live))
         tile_dead = ~np.asarray(live).reshape(64, 128).any(1)
@@ -159,7 +159,7 @@ class TestGatedFetch:
         np.testing.assert_array_equal(gated[lanes_dead], 1.0)
 
     def test_fallbacks_to_plain(self):
-        from ray_tracer_tpu.texture import sample_bilinear_gated
+        from ray_tracer.texture import sample_bilinear_gated
         stack, tex_id, uv, live = self._data(64, 3)
         # live=None, non-divisible R, too few tiles → plain everywhere
         for args in ((stack, tex_id, uv, None),
@@ -172,7 +172,7 @@ class TestGatedFetch:
 
     @pytest.mark.parametrize("live_tiles", [2, 10])
     def test_texel_gradients_match(self, live_tiles):
-        from ray_tracer_tpu.texture import sample_bilinear_gated
+        from ray_tracer.texture import sample_bilinear_gated
         stack, tex_id, uv, live = self._data(64, live_tiles, seed=1)
         w = jnp.asarray(
             np.random.default_rng(2).random((64 * 128, 3), np.float32))
@@ -194,7 +194,7 @@ class TestGatedFetch:
 
 @needs_assets
 def test_cube_obj_loads_with_textures():
-    from ray_tracer_tpu.io import load_meshes
+    from ray_tracer.io import load_meshes
     meshes = load_meshes(os.path.join(ASSETS, "cube.obj"))
     m = meshes[0]
     assert m.uvs is not None and m.uvs.shape[0] == m.positions.shape[0]
@@ -206,7 +206,7 @@ def test_cube_obj_loads_with_textures():
 @needs_assets
 def test_cube_obj_textured_render():
     """BASELINE config 3: cube.obj with diffuse+normal textures."""
-    from ray_tracer_tpu.io import load_model
+    from ray_tracer.io import load_model
     b = rt.SceneBuilder(texture_resolution=64)
     load_model(os.path.join(ASSETS, "cube.obj"), b, placement="origin")
     scene = b.build()

@@ -9,8 +9,8 @@ import pytest
 
 matplotlib.use("Agg", force=True)
 
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.viewer import Viewer, view
+import ray_tracer as rt
+from ray_tracer.viewer import Viewer, view
 
 
 PARAMS = rt.RenderParams(width=16, height=16, bounces=1, backend="jnp",
@@ -111,7 +111,7 @@ def test_resize():
 
 def test_scroll_delta_paths():
     """Both reference scroll paths (camera.rs:235-244) exist verbatim."""
-    from ray_tracer_tpu.camera import CameraController
+    from ray_tracer.camera import CameraController
     c = CameraController()
     c.scroll_line_delta(2.0)
     assert c.scroll == -20000.0

@@ -2,19 +2,15 @@
 
 Recovers a rigid vertex offset AND the albedo of the Utah teapot
 (15,704 triangles) from target renders: albedo by autodiff through the
-fused-kernel custom_vjp (hit-overlap-masked cotangent), the 3-DoF offset
-by central finite differences of the common-random-numbers loss (which,
-unlike the interior autodiff gradient, sees visibility — the in-step
-comments record the measured failure modes that forced each choice).
-Recovered on a TPU v5e chip in 68 s / 300 steps at 192²: offset error
-0.0016 of extent, albedo error 0.004 (artifacts/invert_teapot.json).
+differentiable winner recompute (hit-overlap-masked cotangent), the
+3-DoF offset by central finite differences of the common-random-numbers
+loss (which, unlike the interior autodiff gradient, sees visibility — the
+in-step comments record the observed failure modes that forced each
+choice).
 
 Usage: python tools/invert_teapot.py [steps] [size] [outfile]
 Prints one JSON line with the recovery errors and writes it to ``outfile``
-(default artifacts/invert_teapot.json). Every step syncs the tiny
-parameter/optimizer state to the host and retries through transient
-relay failures from that safe point — a multi-minute run must survive
-the outages that ate round 2's artifacts.
+(default artifacts/invert_teapot.json).
 """
 
 import json
@@ -27,11 +23,11 @@ import jax
 import jax.numpy as jnp
 import optax
 
-sys.path.insert(0, "/root/repo")
-import ray_tracer_tpu as rt
-from ray_tracer_tpu.io import load_model
-from ray_tracer_tpu.renderer import render_aov, render_frame
-from ray_tracer_tpu.utils.retry import retry_transient
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import ray_tracer as rt
+from ray_tracer.io import load_model
+from ray_tracer.renderer import render_aov, render_frame
 
 def _cli_args():
     # parsed lazily: this module is also imported by tests (run_recovery),
@@ -175,7 +171,7 @@ def _run_recovery_impl(scene, ext, params, STEPS, start_offset,
         #   AOV overlap, stop-gradiented). While the offset is off by even
         #   1-2 px, silhouette pixels compare teapot against sky and their
         #   huge residuals BIAS the albedo toward the sky mixture
-        #   (measured r3 on-chip: offset converged to 0.008·extent while
+        #   (observed: offset converged to 0.008·extent while
         #   albedo stalled at error 0.38, sky-bright; a 90%-residual trim
         #   was worse — the teapot covers <10% of the frame, so the trim
         #   dropped the teapot itself and albedo chased the sky to 1.0).
@@ -193,7 +189,7 @@ def _run_recovery_impl(scene, ext, params, STEPS, start_offset,
         # The interior (autodiff) gradient is blind to visibility — the
         # hit/miss winner is detached — and near the optimum it is
         # ADVERSARIAL (the silhouette-band residuals shrink fastest by
-        # shrinking overlap: measured on-chip, interior-only descent walks
+        # shrinking overlap: observed, interior-only descent walks
         # 0.148 -> 0.24 AWAY from truth at true albedo). The edge-sampled
         # boundary estimator (grad/edges.py) is unbiased but at this
         # workload variance-dominated (8192 samples over ~23k candidate
@@ -226,7 +222,7 @@ def _run_recovery_impl(scene, ext, params, STEPS, start_offset,
     # jump); with the finite-difference offset estimator it is mostly a
     # safety rail rather than a necessity.
     #
-    # Two-timescale coupling (measured r3 on-chip, three failure modes):
+    # Two-timescale coupling (three observed failure modes):
     # (1) joint descent with a whole-run albedo cosine — offset converges
     #     by ~step 120 but the albedo lr has decayed while it was chasing
     #     the misalignment mixture: frozen at error 0.38;
@@ -260,21 +256,14 @@ def _run_recovery_impl(scene, ext, params, STEPS, start_offset,
 
     losses = []
     for i in range(STEPS):
-        # host-side safe point: the whole step state is ~50 floats, so
-        # pulling it each iteration costs nothing next to the render; a
-        # transient relay failure retries the step from these host copies
         # FD step anneals coarse->fine: 1.5% of scene extent (~3 world
         # units on the teapot — a few pixels, wide capture basin) down a
         # decade (sub-pixel refinement). Extent-relative so the loop is
         # scene-agnostic (identical to the tuned teapot constant there).
         h = 0.015 * ext * (0.1 ** (i / max(1, STEPS - 1)))
 
-        def one_step(_i=i, _os=opt_state, _of=offset, _al=albedo, _h=h):
-            return jax.device_get(step(_os, _of, _al, jnp.int32(_i),
-                                       jnp.float32(_h)))
-
-        opt_state, do, da, loss = retry_transient(
-            one_step, retries=4, base_delay=15.0, max_delay=240.0)
+        opt_state, do, da, loss = jax.device_get(step(
+            opt_state, offset, albedo, jnp.int32(i), jnp.float32(h)))
         offset = offset + do
         albedo = np.clip(albedo + da, 0.0, 1.0)  # physical range projection
         losses.append(float(loss))
